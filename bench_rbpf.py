@@ -4,8 +4,7 @@
   — the updates/s-vs-particle-count curve (P=40 is the apples-to-apples
   row against the reference's CPU budget, P=500 is BASELINE config 5 and
   the line `bench.py` emits for the driver).
-- P=500 on the 8x8 m 160x160 map — twice the reference's world per side,
-  through the same single-VMEM-block kernels (judge r3 next #5).
+- P=500 on the 8x8 m 160x160 map — twice the reference's world per side.
 
 Methodology (per-scan dispatch, donated state, best-of) lives in
 :func:`bench.bench_rbpf`.
@@ -13,19 +12,18 @@ Methodology (per-scan dispatch, donated state, best-of) lives in
 
 import json
 
-import jax
-
-from bench import bench_rbpf
+from bench import bench_rbpf, device_info
 
 
 def main():
-    print("devices:", jax.devices(), flush=True)
+    device = device_info()
     for p in (40, 500, 1000, 2000):
-        print(json.dumps(bench_rbpf(p=p)), flush=True)
+        print(json.dumps({**bench_rbpf(p=p), "device": device}), flush=True)
 
     from tpunav.estimation.rbpf import GridConfig
     big = GridConfig(xmin=-4.0, xmax=4.0, ymin=-4.0, ymax=4.0)
-    print(json.dumps(bench_rbpf(p=500, grid=big, wall=3.2)), flush=True)
+    print(json.dumps({**bench_rbpf(p=500, grid=big, wall=3.2),
+                      "device": device}), flush=True)
 
 
 if __name__ == "__main__":

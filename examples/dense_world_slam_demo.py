@@ -176,7 +176,7 @@ def main():
     t = np.asarray(tel)
     out = os.path.join(os.path.dirname(__file__), "out",
                        "dense_world_slam.png")
-    plot_series(
+    out = plot_series(
         {"SLAM |xy| err [cm]": t[:, 0] * 100,
          "odometry |xy| err [cm]": t[:, 2] * 100,
          "SLAM yaw err [deg]": np.degrees(t[:, 1]),
@@ -188,7 +188,8 @@ def main():
         out,
         title="dense world (44 cylinders): lidar→detector→unknown-DA EKF"
               " + MPPI")
-    print("wrote", out)
+    if out:
+        print("wrote", out)
 
 
 if __name__ == "__main__":

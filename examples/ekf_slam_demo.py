@@ -1,6 +1,6 @@
 """End-to-end demo: EKF SLAM (known + unknown DA) vs odometry dead-reckoning.
 
-TPU-native equivalent of `roslaunch nuslam slam.launch debug:=true`
+JAX equivalent of `roslaunch nuslam slam.launch debug:=true`
 (ref: nuslam/src/slam_node.cpp + analysis_node.cpp): a simulated robot
 drives an arc through the 12-cylinder block world; the filter receives
 noisy odometry and gated landmark measurements; final pose error vs ground
@@ -63,8 +63,7 @@ def run(slam_step, cfg, steps=400, seed=0):
 
 
 def main():
-    # f32 on TPU: x64 is emulated on-device and is reserved for the CPU
-    # parity test suite.
+    # f32 on the device; x64 is reserved for the CPU parity test suite.
     print("devices:", jax.devices())
     for name, step_fn, cfg in [
         # Process noise at the odometry bias's actual scale (the

@@ -159,7 +159,8 @@ def main():
                          f"lidar_ekf_{tag}_timeseries.png"),
             title=f"lidar → detector → EKF SLAM ({tag} DA)",
             xlabel="step")
-        print(f"  wrote {out}")
+        if out:
+            print(f"  wrote {out}")
 
 
 if __name__ == "__main__":

@@ -18,7 +18,7 @@ import os
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")   # host-loop demo; no TPU needed
+jax.config.update("jax_platforms", "cpu")   # host-loop demo; no GPU needed
 import jax.numpy as jnp
 import numpy as np
 

@@ -2,7 +2,7 @@
 
 The reference runs its stack across two machines via roslaunch
 ``<machine>`` tags (ref: nuturtle_robot/launch/basic_remote.launch:1-40 —
-ssh-spawned nodes sharing one ROS master). The TPU-native equivalent is
+ssh-spawned nodes sharing one ROS master). The JAX equivalent is
 SPMD: every process runs THIS script, ``jax.distributed.initialize``
 wires them over the coordinator, and one global mesh spans all
 processes' devices so the MPPI softmax reduction (pmin + one fused psum

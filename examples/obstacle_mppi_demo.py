@@ -5,7 +5,8 @@ Architecture mirrors the reference stack (global planner feeds the local
 controller): Theta* on a PRM routes around a wall
 (ref: planner/src/prm_planner.cpp Theta* shortcut :110-143), and the MPPI
 rollouts price clearance against the same obstacle primitives in-register
-(ops/pallas_mppi.py) — no grid ESDF, no gathers, one kernel per solve.
+(ops/pallas_mppi.py) — no grid ESDF, no gathers; rollouts and costs in
+one kernel.
 The whole course runs device-resident (control/waypoint_loop.py).
 """
 

@@ -62,7 +62,7 @@ def run_course(jax, mesh):
                    icp=ICPConfig(max_iter=10))
     segs = box_segments(-1.5, -1.5, 1.5, 1.5, jnp.float32)
     st = pf_init_sharded(cfg, mesh, axis_name="p", seed=5)
-    step = pf_slam_step_sharded(cfg, mesh, axis_name="p", backend="xla")
+    step = pf_slam_step_sharded(cfg, mesh, axis_name="p")
 
     u = jnp.asarray([0.0, 0.05], jnp.float32)
     odom_prev = jnp.zeros(3, jnp.float32)

@@ -1,6 +1,6 @@
 """Interactive SE(2) frame-math demo.
 
-TPU-native equivalent of the reference's `rigid2d_node`
+JAX equivalent of the reference's `rigid2d_node`
 (ref: rigid2d/src/rigid2d_node.cpp:11-218): read two transforms Tab and
 Tbc, a point, a vector, and a twist, plus the frame they're expressed in;
 print all six transforms (Tab, Tba, Tbc, Tcb, Tac, Tca) and the

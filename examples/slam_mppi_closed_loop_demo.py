@@ -1,7 +1,7 @@
 """End-to-end demo: EKF SLAM closing the MPPI control loop (one device
 program per course).
 
-TPU-native equivalent of running the reference's full stack —
+JAX equivalent of running the reference's full stack —
 `roslaunch nuslam slam.launch` + `mppi_waypoints` — where the controller
 consumes the FILTER's pose, odometry is biased (the failure mode SLAM
 exists to fix), and landmark frames arrive at a fraction of the control

@@ -79,43 +79,48 @@ def test_sharded_closed_loop_step_runs():
 
 
 def test_fused_sharded_matches_single_fused_kernel():
-    """The FUSED Pallas path executed on all 8 mesh devices (external
-    noise + interpret mode — the in-kernel PRNG needs real hardware):
-    per-shard partials + pmin/psum combine must equal the single-program
-    fused kernel fed the identical full noise tensor (VERDICT r2 item 3)."""
-    from tpunav.ops.pallas_mppi import mppi_solve_fused
-    from tpunav.parallel import mppi_solve_fused_sharded
+    """The fused kernel's partials path on all 8 mesh devices (Pallas
+    interpreter): per-shard partials + pmin/psum combine must equal the
+    one-device kernel and the XLA solve fed the identical per-shard
+    noise."""
+    from tpunav.ops.pallas_mppi import (combine_softmax_partials,
+                                        mppi_solve_partials)
 
     mesh = rollout_mesh()
     nd = mesh.devices.size
     cfg = m.MPPIConfig(rollouts=8 * 128, horizon=0.2, dt=0.01)
-    sub = cfg.rollouts // 128
     u = m.init_controls(cfg, dtype=jnp.float32)
+    key = jax.random.PRNGKey(5)
     pose = jnp.array([0.1, -0.2, 0.3], jnp.float32)
     xd = jnp.array([1.0, 1.0, 0.0], jnp.float32)
     sig = jnp.sqrt(jnp.asarray([cfg.ul_var, cfg.ur_var], jnp.float32))
-    noise = jax.random.normal(
-        jax.random.PRNGKey(5), (cfg.steps, sub, 128, 2), jnp.float32) * sig
+    noise = jnp.concatenate([
+        jax.random.normal(jax.random.fold_in(key, i),
+                          (cfg.rollouts // nd, cfg.steps, 2),
+                          jnp.float32) * sig for i in range(nd)])
+    part = mppi_solve_partials(cfg, MODEL, u, noise, pose, xd,
+                               interpret=True)
+    cmd_1, u_next_1 = combine_softmax_partials(
+        cfg, u, part, lambda v: jnp.min(v, 0), lambda v: jnp.sum(v, 0))
+    cmd_r, u_next_r = _replicated_reference(cfg, nd, u, key, pose, xd)
 
-    cmd_1, u_next_1 = mppi_solve_fused(cfg, MODEL, u, 0, pose, xd,
-                                       noise=noise, interpret=True)
-
-    solve = mppi_solve_fused_sharded(cfg, MODEL, mesh, with_noise=True,
-                                     interpret=True)
-    cmd_8, u_next_8 = solve(u, jnp.int32(0), pose, xd, noise)
+    solve = m_sharded(cfg, mesh, fused=True, interpret=True)
+    cmd_8, u_next_8 = solve(u, key, pose, xd)
     assert nd == 8
-    np.testing.assert_allclose(np.asarray(cmd_8), np.asarray(cmd_1),
-                               atol=1e-5)
-    np.testing.assert_allclose(np.asarray(u_next_8), np.asarray(u_next_1),
-                               atol=1e-5)
+    for a, b in ((cmd_8, cmd_1), (u_next_8, u_next_1), (cmd_8, cmd_r),
+                 (u_next_8, u_next_r)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-5)
 
 
 def test_fused_sharded_rejects_bad_axis_split():
-    from tpunav.parallel import mppi_solve_fused_sharded
     mesh = rollout_mesh()
     try:
-        mppi_solve_fused_sharded(_cfg(129), MODEL, mesh)
+        m_sharded(_cfg(129), mesh, fused=True)
         raised = False
     except ValueError:
         raised = True
     assert raised
+
+
+def m_sharded(cfg, mesh, **kw):
+    return mppi_solve_sharded(cfg, MODEL, mesh, **kw)

@@ -353,3 +353,28 @@ def test_live_view_node(tmp_path):
     view.tick(0.3)
     assert view.frames == 2
     assert len(view.trails["slam"]) == 2            # trail accumulates
+
+
+def test_cache_dir_follows_env(monkeypatch, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR, when set, is the cache directory, and
+    enable() puts the cache there."""
+    from tpunav.runtime import cache
+
+    old = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "cc"))
+    try:
+        assert cache.cache_dir() == str(tmp_path / "cc")
+        assert cache.enable() == str(tmp_path / "cc")
+        assert jax.config.jax_compilation_cache_dir == str(tmp_path / "cc")
+        assert (tmp_path / "cc").is_dir()
+    finally:
+        jax.config.update("jax_compilation_cache_dir", old)
+
+
+def test_cache_dir_defaults_to_checkout(monkeypatch):
+    """Without the variable the cache is the checkout's .jax_cache."""
+    from tpunav.runtime import cache
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert cache.cache_dir() == os.path.join(root, ".jax_cache")

@@ -1,4 +1,4 @@
-"""tpunav — a TPU-native navigation, SLAM, and sampling-based MPC framework.
+"""tpunav — a navigation, SLAM, and sampling-based MPC framework in JAX.
 
 Built from scratch in JAX/XLA/Pallas/pjit with the capabilities of the
 bostoncleek/ROS-Turtlebot-Navigation C++/ROS1 stack (see SURVEY.md):

@@ -1,6 +1,6 @@
-"""MPPI — model-predictive path-integral control, fully batched on TPU.
+"""MPPI — model-predictive path-integral control, fully batched.
 
-TPU-native re-design of ``controller::MPPI``
+Data-parallel re-design of ``controller::MPPI``
 (ref: controller/include/controller/mppi.hpp:121-185,
 controller/src/controller/mppi.cpp:28-186). The reference iterates K
 rollouts in a Python-style for-loop, integrating one trajectory at a time
@@ -9,7 +9,7 @@ with per-step scalar RNG draws. Here the whole solve is one traced program:
 - perturbations: a single ``jax.random.normal`` draw of shape (K, N, 2)
   (counter-based keys replace the global Mersenne twister);
 - rollouts: ``lax.scan`` over the horizon N carrying all K states (K, 3)
-  at once — K is the wide, VPU/MXU-friendly axis;
+  at once — K is the wide, data-parallel axis;
 - cost-to-go: reverse cumulative sum down the (N, K) loss matrix
   (ref: cumSumCost mppi.cpp:15-25);
 - update: per-step softmax over K (min-subtracted, +1e-8 floored, exactly
@@ -18,6 +18,8 @@ with per-step scalar RNG draws. Here the whole solve is one traced program:
 
 Semantics match the reference step-for-step at equal (K, N) when fed equal
 noise; throughput comes from K being a batch axis instead of a loop.
+``tpunav.ops.pallas_mppi.mppi_solve_fused`` is the same solve as one
+Pallas kernel per block of rollouts.
 """
 
 from __future__ import annotations
@@ -122,7 +124,10 @@ def update_controls(cfg: MPPIConfig, u, noise, j):
     j = j - jnp.min(j, axis=1, keepdims=True)
     w = jnp.exp(-j / cfg.lambda_) + 1e-8
     w = w / jnp.sum(w, axis=1, keepdims=True)          # (N, K)
-    u_new = u + jnp.einsum("nk,knc->nc", w, noise)
+    # HIGHEST: a float32 contraction may otherwise run in TF32 on a GPU
+    # (~10 mantissa bits), several hundred times coarser than f32.
+    u_new = u + jnp.einsum("nk,knc->nc", w, noise,
+                           precision=jax.lax.Precision.HIGHEST)
     return jnp.clip(u_new, -cfg.max_wheel_vel, cfg.max_wheel_vel)
 
 

@@ -2,14 +2,14 @@
 
 The reference controller only tracks waypoints (its LQR loss,
 controller/include/controller/mppi.hpp:57-111); obstacle awareness lives
-in the global planners. For MPPI-with-obstacles the TPU-native design
+in the global planners. For MPPI-with-obstacles the data-parallel design
 evaluates a distance-field cost at EVERY rollout state in the same fused
 solve: the planning grid's polygons (or a SLAM occupancy grid) become an
 ESDF once, and each of the K×N trajectory points pays
 
     cost(p) = w_hit·[d(p) ≤ r_safe] · BIG + w_field·exp(−(d(p)−r_safe)/σ)
 
-via a bilinear ESDF lookup — pure gathers + VPU math, so K=10k rollouts
+via a bilinear ESDF lookup — pure gathers + elementwise math, so K=10k rollouts
 price obstacles with no extra passes.
 """
 

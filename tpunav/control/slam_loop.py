@@ -1,7 +1,7 @@
 """SLAM-in-the-loop MPPI: the full estimate→plan→act stack as ONE device
 program.
 
-TPU-native equivalent of the reference's flagship multi-node deployment —
+Equivalent of the reference's flagship multi-node deployment —
 `roslaunch nuslam slam.launch` feeding `mppi_waypoints`
 (ref: nuslam/src/slam_node.cpp + nuturtle_robot/src/mppi_waypoints_node.cpp)
 — where the EKF pose estimate, not ground truth, closes the control loop.
@@ -30,6 +30,7 @@ from ..estimation.ekf.filter import (EKFConfig, EKFState, ekf_init,
                                      known_correspondence_slam, robot_pose,
                                      slam_unknown_da)
 from ..models.cart import CartParams, kinematic_cart
+from ..ops.pallas_mppi import mppi_solve_fused
 from ..ops.rk4 import rk4_step
 from .mppi import MPPIConfig, init_controls, mppi_solve
 
@@ -48,10 +49,9 @@ class SlamLoopConfig:
     meas_noise_std: float = 1e-4
     odom_bias: Tuple[float, float] = (1e-3, 5e-4)   # per-tick (w, vx) bias
     known_da: bool = True
-    # Solver backend, mirroring CourseConfig: False = XLA mppi_solve;
-    # True = the fused Pallas kernel seeded with fused_seed + tick.
+    # Solver, mirroring CourseConfig: False = XLA mppi_solve; True = the
+    # fused Pallas kernel. Both draw the same noise from k_solve.
     use_fused: bool = False
-    fused_seed: int = 0
 
 
 class SlamLoopState(NamedTuple):
@@ -114,14 +114,8 @@ def slam_loop_tick(mppi_cfg: MPPIConfig, ekf_cfg: EKFConfig,
     wpt = waypoints[wpt_idx]
 
     key, k_solve, k_meas, k_sense = jax.random.split(st.key, 4)
-    if cfg.use_fused:
-        from ..ops.pallas_mppi import mppi_solve_fused
-
-        seed = jnp.asarray(cfg.fused_seed, jnp.int32) + st.ticks
-        cmd, u = mppi_solve_fused(mppi_cfg, model, st.u, seed, est_xyt,
-                                  wpt)
-    else:
-        cmd, u = mppi_solve(mppi_cfg, model, st.u, k_solve, est_xyt, wpt)
+    solve = mppi_solve_fused if cfg.use_fused else mppi_solve
+    cmd, u = solve(mppi_cfg, model, st.u, k_solve, est_xyt, wpt)
     cmd = jnp.where(done, jnp.zeros_like(cmd), cmd)
 
     # True plant (ref: fake encoders + odometer chain).

@@ -1,4 +1,4 @@
-"""Core SE(2) / diff-drive kinematics (TPU-native rigid2d equivalent)."""
+"""Core SE(2) / diff-drive kinematics (JAX rigid2d equivalent)."""
 
 from . import angles, se2, diff_drive, waypoints, randoms  # noqa: F401
 from .angles import (  # noqa: F401

@@ -1,6 +1,6 @@
 """Angle utilities (pure JAX, vmappable, branch-free).
 
-TPU-native re-design of the reference's constexpr angle helpers
+Data-parallel re-design of the reference's constexpr angle helpers
 (ref: rigid2d/include/rigid2d/rigid2d.hpp:24-138). All functions operate
 elementwise on arrays of any shape and preserve dtype.
 """
@@ -28,7 +28,7 @@ def normalize_angle_pi(rad):
 
     Matches the reference formula exactly (ref: rigid2d.hpp:53-64):
     q = floor((rad+pi)/2pi); r = (rad+pi) - q*2pi; r += 2pi if r < 0; r - pi.
-    Branch-free via ``jnp.where`` so it vectorizes on the VPU.
+    Branch-free via ``jnp.where`` so it vectorizes.
     """
     rad = jnp.asarray(rad)
     shifted = rad + PI

@@ -1,6 +1,6 @@
 """Differential-drive kinematics as pure functions over a pytree state.
 
-TPU-native re-design of ``rigid2d::DiffDrive``
+Data-parallel re-design of ``rigid2d::DiffDrive``
 (ref: rigid2d/include/rigid2d/diff_drive.hpp:37-104,
 rigid2d/src/rigid2d/diff_drive.cpp). The C++ class carries mutable pose +
 encoder state; here state is an immutable ``DiffDriveState`` pytree and

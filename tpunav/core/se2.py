@@ -1,10 +1,10 @@
 """SE(2) Lie-group operations on batched arrays (pure JAX).
 
-TPU-native re-design of the reference's ``rigid2d::Transform2D``
+Data-parallel re-design of the reference's ``rigid2d::Transform2D``
 (ref: rigid2d/include/rigid2d/rigid2d.hpp:314-372,
 rigid2d/src/rigid2d/rigid2d.cpp:120-303). Instead of a stateful C++ class,
 a transform is a plain ``(..., 3)`` array ``[theta, x, y]`` so every op is
-vmappable/scannable and fuses on the VPU. Twists are ``(..., 3)`` arrays
+vmappable/scannable and fuses under XLA. Twists are ``(..., 3)`` arrays
 ``[w, vx, vy]`` (matching ``rigid2d::Twist2D``).
 
 The screw-exponential ``exp_twist`` is branch-free: it replaces the

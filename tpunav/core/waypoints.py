@@ -1,6 +1,6 @@
 """Waypoint-following twist generators (functional, scannable).
 
-TPU-native re-design of ``rigid2d::Waypoints``
+Data-parallel re-design of ``rigid2d::Waypoints``
 (ref: rigid2d/include/rigid2d/waypoints.hpp:16-66,
 rigid2d/src/rigid2d/waypoints.cpp). The C++ class mutates (idx, ctr,
 cycle_complete); here that bookkeeping is a ``WaypointState`` pytree and the

@@ -1,4 +1,4 @@
-"""EKF SLAM over cylindrical landmarks (TPU-native nuslam equivalent)."""
+"""EKF SLAM over cylindrical landmarks (JAX nuslam equivalent)."""
 
 from .filter import (  # noqa: F401
     EKFConfig,

@@ -1,6 +1,6 @@
 """EKF SLAM with known and unknown (Mahalanobis-gated) data association.
 
-TPU-native re-design of ``nuslam::EKF``
+Data-parallel re-design of ``nuslam::EKF``
 (ref: nuslam/include/nuslam/ekf_filter.hpp:62-155,
 nuslam/src/nuslam/ekf_filter.cpp). Design mapping (SURVEY.md §2.3):
 
@@ -10,7 +10,7 @@ nuslam/src/nuslam/ekf_filter.cpp). Design mapping (SURVEY.md §2.3):
   static under jit.
 - The per-measurement sequential update loops (ekf_filter.cpp:327-400 and
   :163-280) become ``lax.scan`` over the measurement axis — each step is
-  dense (S×S) linear algebra that XLA maps onto the MXU.
+  dense (S×S) linear algebra for XLA's matmul kernels.
 - Unknown-DA's per-landmark Mahalanobis loop (ekf_filter.cpp:163-208)
   is vectorized over all n landmark slots at once (masked argmin).
 - Noise injection (motionUpdate's sampled w, predictedMeasurement's
@@ -49,7 +49,7 @@ class EKFConfig:
     motion_noise: Tuple[float, float, float] = (1e-10, 1e-10, 1e-10)
     measurement_noise: Tuple[float, float] = (1e-8, 1e-8)
     # Conditional nearest-SPD covariance repair (ref: ekf_filter.cpp:
-    # 298-305, 330-335). The TPU-shaped default: ONE conditional eigh
+    # 298-305, 330-335). The accelerator-shaped default: ONE conditional eigh
     # repair per step (the reference's pre-pass) + cheap symmetrization
     # per measurement — the Joseph-form update (see _kalman_update) is
     # PSD by construction, so the reference's per-measurement repair is
@@ -375,10 +375,11 @@ def _noise_draws(cfg: EKFConfig, key, n_meas, dtype):
 def _full_precision(fn):
     """Run all matmuls inside ``fn`` at full float32 precision.
 
-    The filter's covariance algebra spans ~1e-10 .. 1e3; TPU's default
-    matmul precision (bfloat16 passes) destroys the innovation and
-    Mahalanobis scales, silently breaking gating. Reference parity (a
-    double-precision CPU EKF) requires full-precision products.
+    The filter's covariance algebra spans ~1e-10 .. 1e3; a GPU's default
+    float32 matmul precision (TF32, ~10 mantissa bits) destroys the
+    innovation and Mahalanobis scales, silently breaking gating.
+    Reference parity (a double-precision CPU EKF) requires full-precision
+    products.
     """
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):

@@ -1,9 +1,9 @@
 """Symmetric-positive-definite covariance repair.
 
-TPU-native re-design of the reference's SPD utilities
+Data-parallel re-design of the reference's SPD utilities
 (ref: nuslam/src/nuslam/ekf_filter.cpp:18-91). The C++ ``isSPD`` does an
 LLT round-trip and ``nearestSPD`` runs Higham's polar-factor iteration
-with a full SVD *loop* until LLT succeeds. On TPU a single ``eigh`` with
+with a full SVD *loop* until LLT succeeds. On an accelerator a single ``eigh`` with
 eigenvalue clipping produces the nearest SPD matrix in Frobenius norm
 directly (Higham 1988's analytical solution), with no data-dependent loop.
 """

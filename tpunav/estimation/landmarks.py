@@ -1,6 +1,6 @@
 """Lidar landmark detection: clustering + algebraic circle fitting.
 
-TPU-native re-design of ``nuslam::Landmarks``
+Data-parallel re-design of ``nuslam::Landmarks``
 (ref: nuslam/include/nuslam/landmarks.hpp:99-141,
 nuslam/src/nuslam/landmarks.cpp). Design mapping (SURVEY.md §2.3):
 
@@ -135,14 +135,16 @@ def _fit_from_moments(S, z_bar, count):
     A_small = V[:, 0]
 
     # Branch 2: Y = sqrt(S), Q = Y Hinv Y, smallest positive eigenvalue.
-    Y = (V * sigma) @ V.T
+    # HIGHEST: f32 products may otherwise run in TF32 on a GPU, too
+    # coarse for the eigen-solve's smallest positive eigenvalue.
+    Y = jnp.matmul(V * sigma, V.T, precision=jax.lax.Precision.HIGHEST)
     Hinv = jnp.array([
         [0.0, 0.0, 0.0, 0.5],
         [0.0, 1.0, 0.0, 0.0],
         [0.0, 0.0, 1.0, 0.0],
         [0.5, 0.0, 0.0, 0.0],
     ], dtype=S.dtype).at[3, 3].set(-2.0 * z_bar)
-    Q = Y @ Hinv @ Y
+    Q = jnp.matmul(jnp.matmul(Y, Hinv, precision=jax.lax.Precision.HIGHEST), Y, precision=jax.lax.Precision.HIGHEST)
     q_eig, W = jnp.linalg.eigh(Q)
     # Smallest strictly-positive eigenvalue (ref: :196-207).
     q_masked = jnp.where(q_eig > 0.0, q_eig, jnp.inf)

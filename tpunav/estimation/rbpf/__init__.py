@@ -1,4 +1,4 @@
-"""Rao-Blackwellized particle-filter grid SLAM (TPU-native bmapping)."""
+"""Rao-Blackwellized particle-filter grid SLAM (JAX bmapping)."""
 
 from .grid import GridConfig, integrate_scan, likelihood_field_log, occupancy_grid  # noqa: F401
 from .icp import icp_match  # noqa: F401

@@ -1,6 +1,6 @@
 """2D ICP scan matching: batched nearest-neighbor + closed-form Procrustes.
 
-TPU-native replacement for the reference's PCL IterativeClosestPoint
+Data-parallel replacement for the reference's PCL IterativeClosestPoint
 wrapper (ref: bmapping/include/bmapping/cloud_alignment.hpp:28-80,
 bmapping/src/bmapping/cloud_alignment.cpp — PCL is a CPU-only native
 dependency, SURVEY.md §2.8). Correspondences are a dense (B×B) masked
@@ -97,7 +97,7 @@ def icp_match(cfg: ICPConfig, src, src_valid, dst, dst_valid,
     resampled wall scans point-to-point systematically underestimates
     motion (each sample matches its own shifted copy), which showed up as
     linear pose drift in closed-loop runs; point-to-line is the standard
-    fix (Censi's PLICP) and is just as TPU-friendly.
+    fix (Censi's PLICP) and is just as data-parallel.
     """
     big = jnp.asarray(1e9, src.dtype)
     n = dst.shape[0]
@@ -155,8 +155,11 @@ def icp_match(cfg: ICPConfig, src, src_valid, dst, dst_valid,
                        normal[:, 0], normal[:, 1]], axis=-1)  # (N, 3)
         b = jnp.sum(normal * (q - moved), axis=-1)            # (N,)
         aw = a * w[:, None]
-        ata = aw.T @ a + 1e-9 * jnp.eye(3, dtype=a.dtype)
-        atb = aw.T @ b
+        # HIGHEST: in TF32 (a GPU's default for f32 products) these
+        # near-singular normal equations lose their small pivots.
+        ata = jnp.matmul(aw.T, a, precision=jax.lax.Precision.HIGHEST) + \
+            1e-9 * jnp.eye(3, dtype=a.dtype)
+        atb = jnp.matmul(aw.T, b, precision=jax.lax.Precision.HIGHEST)
         x = jnp.linalg.solve(ata, atb)
         T_delta = jnp.stack([x[0], x[1], x[2]])
         T_new = se2.compose(T_delta, T)
@@ -164,7 +167,8 @@ def icp_match(cfg: ICPConfig, src, src_valid, dst, dst_valid,
         # Observability: spectrum of the unit-normal outer-product sum.
         # Eigenvalues are in [0,1] and sum to 1 — a corridor's normals
         # all point one way, so the min eigenvalue collapses to ~0.
-        nmat = (normal * w[:, None]).T @ normal / wsum        # (2, 2)
+        nmat = jnp.matmul((normal * w[:, None]).T, normal,
+                          precision=jax.lax.Precision.HIGHEST) / wsum       # (2, 2)
         tr, det = nmat[0, 0] + nmat[1, 1], \
             nmat[0, 0] * nmat[1, 1] - nmat[0, 1] * nmat[1, 0]
         disc = jnp.sqrt(jnp.maximum(tr * tr / 4.0 - det, 0.0))

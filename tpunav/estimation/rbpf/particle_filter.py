@@ -1,6 +1,6 @@
 """Rao-Blackwellized particle filter for grid SLAM, batched over particles.
 
-TPU-native re-design of ``bmapping::ParticleFilter``
+Data-parallel re-design of ``bmapping::ParticleFilter``
 (ref: bmapping/include/bmapping/particle_filter.hpp:89-233,
 bmapping/src/bmapping/particle_filter.cpp). Design mapping (SURVEY.md §2.4):
 
@@ -32,14 +32,12 @@ import jax.numpy as jnp
 
 from ...core import se2
 from ...core.angles import normalize_angle_pi
-from ...ops.pallas_likelihood import likelihood_field_batch
-from ...ops.pallas_map_update import map_update_batch
 from .grid import (
     GridConfig,
     esdf,
     grid_init,
     integrate_scan,
-    likelihood_field_log,
+    likelihood_field_batch,
 )
 from .icp import ICPConfig, icp_match, scan_to_points
 
@@ -199,10 +197,14 @@ def _gaussian_from_samples(cfg: PFConfig, samples, logp_scan, pose,
     mu = jnp.sum(samples * p[:, None], axis=0) / eta
     mu = mu.at[0].set(normalize_angle_pi(mu[0]))
     diff = samples - mu
-    sigma = jnp.einsum("ki,kj,k->ij", diff, diff, p) / eta
+    # HIGHEST: a TF32 product (a GPU's default for f32) can leave this
+    # near-singular covariance indefinite, and the Cholesky then NaNs.
+    sigma = jnp.einsum("ki,kj,k->ij", diff, diff, p,
+                       precision=jax.lax.Precision.HIGHEST) / eta
     chol = jnp.linalg.cholesky(
         sigma + 1e-12 * jnp.eye(3, dtype=sigma.dtype))
-    new_pose = mu + chol @ jax.random.normal(k2, (3,), mu.dtype)
+    new_pose = mu + jnp.matmul(chol, jax.random.normal(k2, (3,), mu.dtype),
+                               precision=jax.lax.Precision.HIGHEST)
     new_pose = new_pose.at[0].set(normalize_angle_pi(new_pose[0]))
     return new_pose, jnp.log(eta)
 
@@ -228,25 +230,15 @@ def _low_variance_resample(cfg: PFConfig, st: PFState, key) -> PFState:
 
 
 def pf_slam_step(cfg: PFConfig, st: PFState, ranges, u, cur_odom,
-                 prev_odom, backend: str | None = None) -> PFState:
+                 prev_odom) -> PFState:
     """One full RBPF SLAM update
     (ref: ParticleFilter::SLAM particle_filter.cpp:141-251):
     ICP against the previous scan (odometry init guess) → per-particle
     pose proposal (Gaussian proposal on success, motion model on failure)
     → per-particle map integration → weight normalization → conditional
     low-variance resampling at N_eff < P/2.
-
-    ``backend``: "pallas" routes the two hot stages (the P×k likelihood
-    sweep and the per-particle map-integrate + EDT rebuild) through the
-    fused TPU kernels (ops/pallas_likelihood.py, ops/pallas_map_update.py);
-    "pallas-interpret" runs those kernels under the Pallas interpreter
-    (CPU-testable); "xla" keeps the portable formulation; None = pallas
-    on TPU.
     """
     p = cfg.num_particles
-    if backend is None:
-        backend = "pallas" if jax.default_backend() == "tpu" else "xla"
-    interpret = backend == "pallas-interpret"
     key, k_icp, k_particles, k_res = jax.random.split(st.key, 4)
     pkeys = jax.random.split(k_particles, p)
 
@@ -264,8 +256,8 @@ def pf_slam_step(cfg: PFConfig, st: PFState, ranges, u, cur_odom,
         samples, k2s = jax.vmap(
             lambda pose, k: _draw_samples(cfg, pose, icp.transform, k)
         )(st.poses, pkeys)                                # (P, k, 3)
-        logp_scan = likelihood_field_batch(
-            cfg.grid, st.dists, ranges, samples, backend=backend)
+        logp_scan = likelihood_field_batch(cfg.grid, st.dists, ranges,
+                                           samples)
         return jax.vmap(
             lambda s, lp, pose, k2: _gaussian_from_samples(
                 cfg, s, lp, pose, cur_odom, prev_odom, k2)
@@ -277,9 +269,8 @@ def pf_slam_step(cfg: PFConfig, st: PFState, ranges, u, cur_odom,
         new_poses = jax.vmap(
             lambda pose, k: _sample_motion_model(cfg, pose, u, k)
         )(st.poses, pkeys)
-        logw = likelihood_field_batch(
-            cfg.grid, st.dists, ranges, new_poses[:, None, :],
-            backend=backend)[:, 0]
+        logw = likelihood_field_batch(cfg.grid, st.dists, ranges,
+                                      new_poses[:, None, :])[:, 0]
         return new_poses, logw
 
     new_poses, dlogw = jax.lax.cond(matcher_ok, success_branch,
@@ -287,16 +278,10 @@ def pf_slam_step(cfg: PFConfig, st: PFState, ranges, u, cur_odom,
     log_weights = st.log_weights + dlogw
 
     # Every particle integrates the scan into ITS OWN map (ref: :236-240).
-    if backend in ("pallas", "pallas-interpret"):
-        grids, dists = map_update_batch(cfg.grid, st.grids, ranges,
-                                        new_poses, interpret=interpret)
-        grids = grids.astype(st.grids.dtype)
-        dists = dists.astype(st.dists.dtype)
-    else:
-        grids = jax.vmap(
-            lambda g, pose: integrate_scan(cfg.grid, g, ranges, pose)
-        )(st.grids, new_poses)
-        dists = jax.vmap(lambda g: esdf(cfg.grid, g))(grids)
+    grids = jax.vmap(
+        lambda g, pose: integrate_scan(cfg.grid, g, ranges, pose)
+    )(st.grids, new_poses)
+    dists = jax.vmap(lambda g: esdf(cfg.grid, g))(grids)
 
     # Normalize + N_eff (ref: normalizeWeights/effectiveParticles
     # :442-465).

@@ -1,9 +1,9 @@
 """Differential-drive cart dynamics model (batched ODE).
 
-TPU-native re-design of ``controller::CartModel``
+Data-parallel re-design of ``controller::CartModel``
 (ref: controller/include/controller/mppi.hpp:31-53). The ODE is written
 over arbitrary leading batch axes so a single call evaluates all K
-rollouts' derivatives on the VPU at once.
+rollouts' derivatives at once.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Exact Euclidean distance transform for occupancy grids.
 
-TPU-native replacement for the reference's fast-marching ESDF
+Data-parallel replacement for the reference's fast-marching ESDF
 (ref: bmapping/src/bmapping/grid_mapper.cpp:333-435 — a priority-queue BFS
 with a precomputed distance LUT, rebuilt from scratch for EVERY particle
 after EVERY scan; SURVEY.md §3.3 calls it the hottest loop). The
@@ -9,7 +9,7 @@ data-parallel equivalent is the two-phase exact EDT:
 1. per-column 1D distances via two ``lax.scan`` passes (down + up);
 2. per-row exact lower envelope evaluated densely:
    D(i,j)² = min_k (j-k)² + g(i,k)² — an (H, W, W) broadcast-min, which
-   XLA fuses into VPU code; at 80x80x80 per particle this is trivial
+   XLA fuses into one elementwise loop; at 80x80x80 per particle this is trivial
    arithmetic and fully batches over the particle axis with ``vmap``.
 """
 

@@ -1,6 +1,6 @@
 """Fixed-step RK4 integration as batched scans.
 
-TPU-native re-design of ``controller::RK4``
+Data-parallel re-design of ``controller::RK4``
 (ref: controller/include/controller/rk4.hpp:19-60,
 controller/src/controller/rk4.cpp). The C++ class integrates one state
 vector with a per-step control column inside nested for-loops; here the

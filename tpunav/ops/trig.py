@@ -1,13 +1,14 @@
-"""Kernel-safe trigonometry helpers.
+"""Polynomial trigonometry helpers for the RBPF map integration.
 
-Mosaic (Pallas TPU) has no atan2 lowering, and the RBPF map kernel needs
-the per-cell bearing (ops/pallas_map_update.py). This Cephes-style
-``atan2`` builds from +,*,/ and selects only, so it lowers everywhere —
-and the portable XLA formulations (estimation/rbpf/grid.py) use the SAME
-function so kernel and reference paths agree bit-for-bit instead of
-differing wherever two atan2 implementations round a cell across a beam
-boundary. Max error ≲ 2e-7 rad over the full plane (f32) — three orders
-below the 1°-beam quantization it feeds.
+The per-cell bearing of ``estimation/rbpf/grid.py:integrate_scan`` is
+quantized to a beam index, so where an atan2 rounds decides which beam a
+boundary cell reads. This Cephes-style ``atan2`` builds from +,*,/ and
+selects only, so every backend (and any kernel written against the same
+formulas) evaluates the same polynomial and quantizes cells to beams
+identically, instead of differing wherever two library atan2
+implementations round a cell across a beam boundary. Max error ≲ 2e-7 rad
+over the full plane (f32) — three orders below the 1°-beam quantization
+it feeds.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ def atan_poly(t):
 
 def atan2(y, x):
     """Four-quadrant arctangent matching jnp.arctan2 conventions
-    (range (-pi, pi]; atan2(0, 0) = 0), built from VPU-only ops."""
+    (range (-pi, pi]; atan2(0, 0) = 0), built from elementwise ops only."""
     ax = jnp.abs(x)
     ay = jnp.abs(y)
     hi = jnp.maximum(ax, ay)
@@ -47,7 +48,7 @@ def atan2(y, x):
 
 def positive_mod(a, period: float):
     """a mod period into [0, period) for possibly-negative a, from
-    floor/multiply only (Mosaic has no fmod)."""
+    floor/multiply only."""
     q = jnp.floor(a * (1.0 / period))
     m = a - q * period
     # Guard the float edge m == period (a tiny negative a can round up).

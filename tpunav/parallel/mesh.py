@@ -3,8 +3,10 @@
 Replaces the reference's multi-machine roslaunch scale-out
 (ref: nuturtle_robot/launch/basic_remote.launch:1-40 — ssh + ROS master)
 with a ``jax.sharding.Mesh``: the rollout axis of MPPI and the particle
-axis of the RBPF shard across chips over ICI, and ``jax.distributed``
-handles multi-host (DCN) initialization.
+axis of the RBPF shard across devices, and ``jax.distributed`` handles
+multi-host initialization. The mesh is 1-D because the algorithms need
+one axis; the GPUs of one host are joined all to all by NVLink, so no
+device order is better than another.
 """
 
 from __future__ import annotations

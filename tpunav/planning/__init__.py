@@ -1,4 +1,4 @@
-"""Global planners: PRM + Theta*, D* Lite, potential fields (TPU-native
+"""Global planners: PRM + Theta*, D* Lite, potential fields (JAX
 planner/ equivalent). Geometry/collision primitives are batched JAX; the
 inherently sequential graph searches (A*/LPA* open-list loops) run on the
 host exactly as SURVEY.md §7.5 prescribes."""

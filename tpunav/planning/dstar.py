@@ -1,6 +1,6 @@
 """D* Lite incremental replanning on a grid with simulated exploration.
 
-TPU-native-framework re-design of ``planner::DStarLight``
+Data-parallel re-design of ``planner::DStarLight``
 (ref: planner/include/planner/dstar_light.hpp:91-185,
 planner/src/planner/dstar_light.cpp). Like the reference, the planner
 holds TWO grids: ``truth`` (the fully labeled planning grid, the C++

@@ -1,6 +1,6 @@
 """C-space planning grid with obstacle inflation (batched JAX labeling).
 
-TPU-native re-design of ``planner::GridMap``
+Data-parallel re-design of ``planner::GridMap``
 (ref: planner/include/planner/grid_map.hpp:93-172,
 planner/src/planner/grid_map.cpp). The reference labels every cell with a
 triple loop (cells × polygons × edges) of branchy signed-distance tests

@@ -1,6 +1,6 @@
 """Potential-field gradient-descent planner (pure JAX, scannable).
 
-TPU-native re-design of ``planner::PotentialField``
+Data-parallel re-design of ``planner::PotentialField``
 (ref: planner/include/planner/potential_field.hpp:28-97,
 planner/src/planner/potential_field.cpp). Semantics preserved exactly:
 

@@ -1,6 +1,6 @@
 """Line-segment / point geometry primitives (batched JAX).
 
-TPU-native re-design of planner/src/planner/planner_utilities.cpp. All
+Data-parallel re-design of planner/src/planner/planner_utilities.cpp. All
 functions broadcast over leading axes so one call evaluates every
 (cell × polygon-edge) pair at once.
 """

@@ -4,7 +4,7 @@ The reference ships the TurtleBot3 Burger model as a xacro URDF
 (ref: nuturtle_description/urdf/diff_drive.urdf.xacro) whose every
 dimension is pulled from diff_params.yaml and whose inertias are
 computed inline from box/cylinder formulas. Without ROS there is no
-robot_state_publisher/rviz consumer, so the TPU-native artifact is a
+robot_state_publisher/rviz consumer, so this framework's artifact is a
 typed LINK TREE built from the same :class:`RobotConfig` constants with
 the same derived quantities:
 

@@ -1,6 +1,6 @@
 """Latest-wins channels + cooperative node scheduler.
 
-TPU-native replacement for the reference's ROS1 node graph: every
+Data-parallel replacement for the reference's ROS1 node graph: every
 subscription in the reference uses queue_size=1 (latest-wins, e.g.
 rigid2d/src/odometry_node.cpp:110-113), and each node is a single-threaded
 ``ros::spinOnce`` loop at a fixed rate. Here:

@@ -3,15 +3,16 @@
 Replaces the reference's three-level rosparam system (SURVEY.md §5):
 YAML files → parameter server → per-node getParam reads. Here YAML maps
 directly onto the frozen config dataclasses each subsystem defines, so the
-reference's config files port verbatim (same key names).
+reference's config files port verbatim (same key names). PyYAML is
+imported only by the functions that read or write a file, so the rest of
+the runtime (and every program that builds its configs in code) runs
+without it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, Type, TypeVar
-
-import yaml
 
 T = TypeVar("T")
 
@@ -38,16 +39,24 @@ def from_dict(cls: Type[T], data: Dict[str, Any]) -> T:
     return cls(**kwargs)
 
 
+def _read_yaml(path: str):
+    import yaml
+
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
 def load_yaml_config(cls: Type[T], path: str, **overrides) -> T:
     """Load a YAML file into a config dataclass (overrides win, like
     per-node <param> tags over <rosparam> files)."""
-    with open(path) as f:
-        data = yaml.safe_load(f) or {}
+    data = _read_yaml(path) or {}
     data.update(overrides)
     return from_dict(cls, data)
 
 
 def save_yaml_config(cfg, path: str) -> None:
+    import yaml
+
     with open(path, "w") as f:
         yaml.safe_dump(dataclasses.asdict(cfg), f, sort_keys=False)
 
@@ -125,8 +134,7 @@ def load_mppi_config(path: str, **overrides):
     dataclass fields (time_step→dt, Q/R/P1→*_diag, ul_init/ur_init→u_init)."""
     from ..control.mppi import MPPIConfig
 
-    with open(path) as f:
-        data = yaml.safe_load(f) or {}
+    data = _read_yaml(path) or {}
     data.update(overrides)
     remap = {"time_step": "dt", "Q": "q_diag", "R": "r_diag",
              "P1": "p1_diag"}
@@ -146,8 +154,7 @@ def load_waypoints(path: str):
     float array of [x, y, theta] rows."""
     import numpy as np
 
-    with open(path) as f:
-        data = yaml.safe_load(f)
+    data = _read_yaml(path)
     x = np.asarray(data["x_component"], np.float64)
     y = np.asarray(data["y_component"], np.float64)
     th = np.asarray(data.get("theta_component", np.zeros_like(x)),
@@ -161,8 +168,7 @@ def load_landmarks(path: str):
     ((n, 2) centers, (n,) int ids)."""
     import numpy as np
 
-    with open(path) as f:
-        data = yaml.safe_load(f)
+    data = _read_yaml(path)
     centers = np.stack([np.asarray(data["x"], np.float64),
                         np.asarray(data["y"], np.float64)], axis=-1)
     ids = np.asarray(data.get("id", range(len(centers))), np.int64)
@@ -176,8 +182,7 @@ def load_world(path: str, scale: float = 1.0):
     mirrors the launch files' coordinate scaling (plan.launch uses 0.1)."""
     from ..planning.world import load_obstacle_map
 
-    with open(path) as f:
-        data = yaml.safe_load(f)
+    data = _read_yaml(path)
     return load_obstacle_map(data["obstacles"], data["bounds"],
                              resolution=float(data.get("resolution", 0.1)),
                              scale=scale)

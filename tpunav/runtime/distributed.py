@@ -1,12 +1,12 @@
 """Multi-host initialization + host-role helpers.
 
-TPU-native replacement for the reference's multi-machine deployment
+Data-parallel replacement for the reference's multi-machine deployment
 (ref: nuturtle_robot/launch/basic_remote.launch:1-40 — roslaunch
 ``<machine>`` tags ssh-spawning nodes on the robot vs the laptop, all
 talking to one ROS master). Here the cluster story is JAX's: every host
-runs the same program, ``jax.distributed.initialize`` wires the hosts
-over DCN, and the device mesh (tpunav.parallel.mesh) spans all chips so
-collectives ride ICI within a slice and DCN across slices.
+runs the same program, ``jax.distributed.initialize`` wires the hosts,
+and the device mesh (tpunav.parallel.mesh) spans all devices, so
+collectives run over NVLink within a host and the network across hosts.
 
 Single-host (or CI) use is a no-op: ``initialize()`` only contacts a
 coordinator when multi-process settings are present, so the same launch

@@ -4,8 +4,7 @@ RUNNING node graph — the framework's rviz.
 The reference streams paths, occupancy maps, and landmark markers into
 rviz while its nodes run (ref: nuslam/src/slam_node.cpp:396-432,
 planner/src/grid_planner_node.cpp:217-261, bmapping's OccupancyGrid
-publishing); tpunav previously rendered post-hoc PNGs only (judge r4
-missing #5). Headless TPU hosts have no display server, so the live
+publishing). Headless accelerator hosts have no display server, so the live
 view renders to an ATOMICALLY-REPLACED image file at its node rate —
 watchable with any auto-refreshing viewer (``watch -n1``, VS Code's
 image tab, a browser) — which is the same pub-rate/latest-wins contract

@@ -1,7 +1,7 @@
 """Simulated landmark sensor: ground-truth cylinders → robot-frame
 measurements with visibility gating and optional Gaussian noise.
 
-TPU-native re-design of the reference's fake-sensor ``analysis`` node
+Data-parallel re-design of the reference's fake-sensor ``analysis`` node
 (ref: nuslam/src/nuslam/analysis_node.cpp:56-182): it transforms world
 landmarks into the robot frame (:106-137), NaNs out landmarks beyond the
 visibility radius (:140-166), and optionally corrupts them with Gaussian

@@ -3,7 +3,7 @@
 Replaces the Gazebo laser plugin (ref: nuturtle_gazebo/urdf/
 diff_drive.gazebo.xacro lidar block; LDS-01 constants in
 bmapping/config/LDS_01_lidar.yaml) with closed-form ray intersections —
-every beam evaluated in parallel on the VPU, vmappable over robots.
+every beam evaluated in parallel, vmappable over robots.
 """
 
 from __future__ import annotations
@@ -34,7 +34,9 @@ def scan_cylinders(pose, centers, radii, num_beams: int = 360,
     o = jnp.stack([x, y])
 
     oc = centers - o                                   # (M, 2)
-    tc = d @ oc.T                                      # (B, M) along-ray
+    # HIGHEST: f32 products may otherwise run in TF32 on a GPU, a
+    # millimetre-scale range error at lidar distances.
+    tc = jnp.matmul(d, oc.T, precision=jax.lax.Precision.HIGHEST)           # (B, M) along-ray
     # Squared perpendicular distance from each center to each ray.
     d2 = jnp.sum(oc * oc, axis=-1)[None, :] - tc * tc  # (B, M)
     disc = radii[None, :] ** 2 - d2

@@ -6,7 +6,7 @@ the engine ramps the joint toward the target as fast as the torque allows
 (ref: nuturtle_gazebo/src/turtle_drive_plugin.cpp:226-232; max torque
 1.5 N·m from nuturtle_description/config/diff_params.yaml:19). A
 pure-kinematic plant that snaps to the commanded velocity is therefore
-slightly optimistic. This module is the TPU-native equivalent: a
+slightly optimistic. This module is the JAX equivalent: a
 jittable first-order tracking law
 
     v' = v + (1 - exp(-dt/τ)) · (v_cmd - v),  |v' - v| ≤ a_max·dt

@@ -1,6 +1,6 @@
 """Simulated robot plant: integer wheel commands → encoder ticks.
 
-TPU-native re-design of the Gazebo TurtleDrivePlugin
+Data-parallel re-design of the Gazebo TurtleDrivePlugin
 (ref: nuturtle_gazebo/src/turtle_drive_plugin.cpp): wheel commands scale
 to joint velocities by max_motor_rot_vel/max_motor_power (:226-232); at
 the sensor rate (default 200 Hz, :140-152) joint positions advance and

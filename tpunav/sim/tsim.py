@@ -1,6 +1,6 @@
 """Rectangle-course test controllers (turtlesim harness equivalent).
 
-TPU-native re-design of the reference's tsim package
+Data-parallel re-design of the reference's tsim package
 (ref: tsim/src/turtle_rect_node.cpp, tsim/config/turtle_params.yaml):
 a bang-bang state machine and an open-loop timed feed-forward controller
 driving a rectangle course, each publishing PoseError against the plant.

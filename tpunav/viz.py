@@ -12,6 +12,19 @@ from __future__ import annotations
 import numpy as np
 
 
+def pyplot():
+    """``matplotlib.pyplot`` on the Agg backend, or None where matplotlib
+    is not installed (a GPU host may lack it; plots are artifacts of the
+    demos, never part of the main path)."""
+    try:
+        import matplotlib
+    except ImportError:
+        return None
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    return plt
+
+
 def _ax(ax=None):
     if ax is None:
         import matplotlib
@@ -138,12 +151,14 @@ def plot_series(series, panels, out: str, title: str = "",
     ``series``: dict name → 1-D array (all the same length).
     ``panels``: list of (ylabel, [series names]) — one axis per panel,
     series identified by legend + fixed color order (never a dual axis).
+    Returns ``out``, or None (with a note) where matplotlib is missing.
     """
     import os
 
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    plt = pyplot()
+    if plt is None:
+        print(f"matplotlib is not installed; {out} not written")
+        return None
 
     series = {k: np.asarray(v, float) for k, v in series.items()}
     n = len(panels)
